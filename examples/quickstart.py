@@ -5,7 +5,7 @@ Runs on any backend (CPU numpy fallback included):
 
     JAX_PLATFORMS=cpu python examples/quickstart.py [workdir]
 
-On a TPU host, drop JAX_PLATFORMS to use the device planner, and run
+On a GPU host, drop JAX_PLATFORMS to use the device planner, and run
 `python scripts/warm_cache.py` once after install to precompile the hot
 executables into the persistent cache.
 """

@@ -1,6 +1,6 @@
 """Vectorized MSB-first bit packing (prefix-sum + scatter).
 
-This is the array-program formulation of bitstream emission that the TPU
+This is the array-program formulation of bitstream emission that the device
 encode path targets: every emitted element is ``unary`` one-bits followed
 by a ``field_len``-bit field. Bit offsets come from an exclusive prefix
 sum of element lengths; unary runs become a +1/-1 difference array whose

@@ -7,7 +7,7 @@ zero padding, per-step int32 range, v3 table validation, trailing bytes.
 
 This host tokenizer is the correctness baseline (v3 block payloads are
 independent, so it parallelizes trivially); the native C++ tokenizer and
-the batched TPU reconstruction path plug in behind the same interface.
+the batched device reconstruction path plug in behind the same interface.
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""TPU-side batched decode: native tokenizer -> device reconstruction.
+"""Device-side batched decode: native tokenizer -> device reconstruction.
 
 v3 block payloads are bit-serial, so tokenization runs in the native
 runtime (parallel over independent blocks); everything after that is an

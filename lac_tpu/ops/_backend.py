@@ -2,7 +2,7 @@
 
 Every op in :mod:`lac_tpu.ops` takes an ``xp`` module argument (numpy by
 default, ``jax.numpy`` when traced/jitted) so a single source of truth
-serves both the host path and the TPU path. This module collects the few
+serves both the host path and the device path. This module collects the few
 primitives whose spelling differs between the two.
 """
 
@@ -54,14 +54,15 @@ def bit_width(m, xp=np, max_bits=33):
     ``bit_width(0) == 0``. Computed from the float64 exponent field —
     exact for m < 2^53 (uint64 -> f64 conversion is exact there, and the
     biased exponent is floor(log2 m) + 1023). Every call site feeds
-    means/values < 2^47. Three VPU ops instead of a 33-compare unroll.
+    means/values < 2^47. Three elementwise ops instead of a 33-compare
+    unroll.
     """
     m = m.astype(xp.uint64)
     if is_jax(xp):
         import jax
 
-        # 32-bit clz halves: the TPU x64-rewrite pass lacks 64-bit
-        # bitcast/frexp, but Clz on u32 is a native XLA op.
+        # 32-bit clz halves: Clz on u32 is a native XLA op on every
+        # backend (no 64-bit bitcast/frexp needed).
         hi = (m >> xp.uint64(32)).astype(xp.uint32)
         lo = m.astype(xp.uint32)
         bw_hi = xp.int32(64) - jax.lax.clz(hi).astype(xp.int32)

@@ -2,7 +2,7 @@
 
 The reference adapts ``k`` serially after every residual sample
 (rice.hpp:45-114 stateful; block/encoder.cpp:72-77 stateless). The key
-TPU-native observation: the adaptation state is a pure function of the
+array-program observation: the adaptation state is a pure function of the
 *history of unsigned residuals* — there is no feedback from ``k`` into
 the state. Concretely, for sample index ``i`` (0-based) of a segment:
 
@@ -28,8 +28,8 @@ from ._backend import bit_width, is_jax, shift_right
 
 def _k_base_divfree(N, c, bwc, xp):
     """``min(31, bit_width(mean - 1))`` for ``mean = floor(N/c) >= 2``
-    WITHOUT computing the mean (integer/float division is extremely
-    expensive on TPU — f64 is emulated).
+    WITHOUT computing the mean (no integer or float division on the
+    whole (..., L) operand).
 
     ``bit_width(mean-1) <= t  <=>  mean <= 2^t  <=>  N < c*(2^t + 1)
     <=> (N - c) >> t < c``.  With ``M = N - c``, ``b1 = bit_width(M)``
@@ -88,32 +88,19 @@ def k_after_stateful(u, xp=np):
 
     ``u``: (..., L) uint64 unsigned residuals. Returns int32 (..., L).
     """
-    # NOTE: a fully fused single-pass Pallas formulation of this function
-    # exists (ops/pallas_adapt.py, bit-identical, tests/test_pallas_adapt)
-    # but measured SLOWER than this split XLA+Pallas chain on the v5e
-    # (34-38 ms vs ~27 ms at (1408, 16384)): the in-kernel log-step roll
-    # scans are VPU-compute-bound, while XLA's fused elementwise segments
-    # between the lean scan kernels codegen better. Kept as a measured
-    # experiment, not a product path (ROADMAP.md §4).
     one = xp.uint64(1)
     L = u.shape[-1]
-    lead = u.shape[:-1]
-    rows = int(np.prod(lead)) if lead else 1
-    # prefix sums via 16-bit-split u32 cumsums (emulated u64 cumsum is
-    # ~5x slower on TPU); the u64 reconstruction is one elementwise op.
-    # On TPU the splits + both scans run in one VMEM-resident Pallas
-    # kernel (pallas_kernels.split_cumsums_u32) — bit-identical.
+    # prefix sums via 16-bit-split u32 cumsums (a u64 cumsum moves twice
+    # the bytes); the u64 reconstruction is one elementwise op. On the
+    # GPU both scans run in one Triton pass (pallas_kernels) — exact.
     u32v = u.astype(xp.uint32)
     use_pk = False
     if is_jax(xp):
         from . import pallas_kernels as _pk
 
-        use_pk = (_pk.pallas_available() and _pk.pallas_default()
-                  and _pk.scan_shape_supported(rows, L))
+        use_pk = _pk.kernel_applicable(L)
     if use_pk:
-        cs_hi, cs_lo = _pk.split_cumsums_u32(u32v.reshape(rows, L))
-        cs_hi = cs_hi.reshape(lead + (L,))
-        cs_lo = cs_lo.reshape(lead + (L,))
+        cs_hi, cs_lo = _pk.split_cumsums_u32(u32v)
     else:
         cs_hi = xp.cumsum(u32v >> xp.uint32(16), axis=-1)
         cs_lo = xp.cumsum(u32v & xp.uint32(0xFFFF), axis=-1)
@@ -163,7 +150,7 @@ def k_after_stateful(u, xp=np):
     )
     packed = (q_base > xp.uint32(3)).astype(xp.uint32) + ((q_base == xp.uint32(0)).astype(xp.uint32) << xp.uint32(16))
     if use_pk:
-        cp = _pk.cumsum_u32(packed.reshape(rows, L)).reshape(lead + (L,))
+        cp = _pk.cumsum_u32(packed)
     else:
         cp = xp.cumsum(packed, axis=-1)
     wp = cp - shift_right(cp, C.MICRO_WINDOW, xp=xp)

@@ -2,7 +2,7 @@
 
 This module is the *readable specification* of the cost machinery: the
 production planner (encoder.plan_group) inlines equivalent math with
-TPU-specific layouts (16-bit-split u32 cumsums, static-geometry boundary
+device-oriented layouts (16-bit-split u32 cumsums, static-geometry boundary
 gathers); tests/test_costs_spec.py pins the two against each other.
 
 Reproduces the reference's estimators bit-for-bit

@@ -2,7 +2,7 @@
 
 The host emitter (`lac_emit_blocks_planes`, runtime/src/lac_runtime.cpp)
 serially packs each lane's token stream; this module is the
-array-program formulation of the same emission for the TPU: element bit
+array-program formulation of the same emission for the device: element bit
 lengths prefix-sum into bit offsets, and every element's bits land in
 the output u32 words via a bounded number of scatter-adds. It exists to
 answer SURVEY §2 C1's open question — "can the token body be packed on

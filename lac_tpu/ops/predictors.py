@@ -14,7 +14,7 @@ Decode side (closed-loop):
   warmup samples into the zero-extended difference domain — fully
   parallel (the reference restores serially, block/decoder.cpp:308-342),
 * FIR/LPC restores are true recurrences (the ``>> 15`` truncation breaks
-  superposition): lax.scan on TPU / native loop on host.
+  superposition): lax.scan on device / native loop on host.
 """
 
 import numpy as np

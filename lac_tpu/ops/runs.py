@@ -23,26 +23,13 @@ def zero_breaks(z, xp=np):
     Returns (last_nz, next_nz): for each position, the index of the
     nearest non-zero sample at-or-before / at-or-after it (sentinels
     -L-2 / L+2 outside). Partition clamps are applied separately, so one
-    pass serves every partition order. int32 throughout — 64-bit cummax
-    is emulated on TPU. On the TPU backend both scans run as
-    VMEM-resident Pallas kernels (pallas_kernels) when shapes allow.
+    pass serves every partition order. int32 throughout: half the bytes
+    of a 64-bit scan.
     """
-    from ._backend import is_jax
-
     L = z.shape[-1]
     idx = xp.arange(L, dtype=xp.int32)
     a = xp.where(~z, idx, xp.int32(-L - 2))
     b = xp.where(~z, idx, xp.int32(L + 2))
-    if is_jax(xp):
-        from . import pallas_kernels as _pk
-
-        lead = z.shape[:-1]
-        rows = int(np.prod(lead)) if lead else 1
-        if (_pk.pallas_available() and _pk.pallas_default()
-                and _pk.scan_shape_supported(rows, L)):
-            last_nz = _pk.prefix_max_i32(a.reshape(rows, L)).reshape(lead + (L,))
-            next_nz = _pk.suffix_min_i32(b.reshape(rows, L)).reshape(lead + (L,))
-            return last_nz, next_nz
     last_nz = cummax(a, xp=xp)
     next_nz = cummin_reverse(b, xp=xp)
     return last_nz, next_nz

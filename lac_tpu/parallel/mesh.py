@@ -1,12 +1,13 @@
-"""Multi-chip scale-out: shard the block axis over a 1-D device mesh.
+"""Multi-device scale-out: shard the block axis over a 1-D device mesh.
 
 The codec's parallel unit is the 16384-sample channel block; blocks are
 fully independent (v3 byte-bounded payloads — reference
 docs/format.md:18-35), so the natural mapping is pure data parallelism
-over ICI with **no collectives in the hot path**: each chip plans its
-shard of blocks, and the host gathers per-block token fields for
-packing. The only cross-chip traffic is an optional ``psum`` of
-aggregate statistics (estimated payload bits), which rides ICI.
+with **no collectives in the hot path**: each device plans its shard of
+blocks, and the host gathers per-block token fields for packing. The
+only cross-device traffic is an optional ``psum`` of aggregate
+statistics (estimated payload bits). Every GPU of a host reaches every
+other at the same NVLink rate, so the mesh stays 1-D.
 
 This replaces the reference's worker thread pool
 (lac/encoder.cpp:385-435) — parallelism is an array axis, not a queue.
@@ -21,6 +22,7 @@ import jax.numpy as jnp
 from .. import configure_jax
 
 configure_jax()
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..encoder import plan_group
@@ -56,19 +58,13 @@ def default_mesh():
     return _DEFAULT_MESH_CACHE[0]
 
 
-try:  # jax >= 0.8 top-level API; experimental path removed later
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
-
-
 @functools.lru_cache(maxsize=32)
 def _sharded_plan_fn(mesh, n, zero_run_enabled, partitioning_enabled, emit_fields=True):
 
     def local(pcm, lpc_coeffs, lpc_valid):
         plan = plan_group(pcm, lpc_coeffs, lpc_valid, n, zero_run_enabled, partitioning_enabled, jnp,
                           emit_fields=emit_fields)
-        # aggregate stat across chips (exercises an ICI collective;
+        # aggregate stat across devices (exercises a collective;
         # correctness never depends on it): total unary+field bits of
         # the compact ship buffer's token payloads — or, in metadata-only
         # replay mode, the psum'd count of planned lanes
@@ -111,9 +107,8 @@ def plan_group_sharded(mesh, pcm, lpc_coeffs, lpc_valid, n,
     """
     fn = _sharded_plan_fn(mesh, n, bool(zero_run_enabled), bool(partitioning_enabled),
                           bool(emit_fields))
-    with mesh:
-        sharding = NamedSharding(mesh, P(BLOCK_AXIS))
-        pcm = jax.device_put(jnp.asarray(pcm), sharding)
-        coeffs = jax.device_put(jnp.asarray(lpc_coeffs), NamedSharding(mesh, P(None, BLOCK_AXIS)))
-        valid = jax.device_put(jnp.asarray(lpc_valid), NamedSharding(mesh, P(None, BLOCK_AXIS)))
-        return fn(pcm, coeffs, valid)
+    sharding = NamedSharding(mesh, P(BLOCK_AXIS))
+    pcm = jax.device_put(jnp.asarray(pcm), sharding)
+    coeffs = jax.device_put(jnp.asarray(lpc_coeffs), NamedSharding(mesh, P(None, BLOCK_AXIS)))
+    valid = jax.device_put(jnp.asarray(lpc_valid), NamedSharding(mesh, P(None, BLOCK_AXIS)))
+    return fn(pcm, coeffs, valid)

@@ -3,7 +3,7 @@
 The reference's thread pool saturates every core with one-block tasks
 regardless of which file a block came from (lac/encoder.cpp:259-443 —
 the task queue holds (block index, both channels) items, provenance
-never matters). The TPU-native equivalent is to fill K-wide device
+never matters). The device-path equivalent is to fill K-wide device
 chunks with 16384-sample blocks drawn from ALL queued files: one
 :class:`~lac_tpu.device_pipeline.PlanePipeline` runs over the
 concatenation of every file's full-block plane rows, so a batch of

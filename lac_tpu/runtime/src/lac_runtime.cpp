@@ -539,7 +539,7 @@ struct BlockMeta {
 
 // canonical-rule citations: reference block/decoder.cpp:407-519
 // parse the channel block into residuals; reconstruction is separate so
-// the TPU path can run batched restores on device.
+// the device path can run batched restores.
 bool parse_channel_block(Reader& r, uint32_t block_size, int32_t* out, BlockMeta& meta) {
   if (block_size == 0 || block_size > kMaxBlock) return false;
   const uint32_t ptype = static_cast<uint32_t>(read_bits(r, 8));
@@ -933,7 +933,7 @@ uint64_t lac_pack_stream(const uint64_t* unary,
 }
 
 // tokenize v3 block payloads into residual planes + predictor metadata,
-// deferring reconstruction (the TPU decode path restores on device).
+// deferring reconstruction (the device decode path restores on device).
 // returns 0 or -(block_index+1).
 int lac_tokenize_v3_blocks(const uint8_t* payload,
                            const uint64_t* payload_offsets,

@@ -2,7 +2,7 @@
 
 The library never reads the environment itself; the CLI resolves
 ``--threads`` then ``LAC_THREADS`` and passes an explicit count (0 =
-auto). In the TPU build the count caps host worker lanes (packing,
+auto). On the device path the count caps host worker lanes (packing,
 tokenizing, file I/O) — device parallelism is the array dimension.
 """
 

@@ -6,7 +6,7 @@ does not on this hardware. Decodes the same set of encoded streams
 with both backends (warm process, fresh decode objects per pass) and
 prints the per-backend wall time; output parity is asserted.
 
-Run on the TPU backend:  python scripts/bench_device_decode.py
+Run on the GPU:          python scripts/bench_device_decode.py
 CPU smoke:               JAX_PLATFORMS=cpu FILES=2 FRAMES=200000 python ...
 """
 

@@ -2,7 +2,7 @@
 """Same-session interleaved A/B of the partial-chunk upload buckets
 (LAC_TPU_UPLOAD_BUCKETS) on the 30 s bench corpus (80 full blocks at
 K=128: the bucketed upload ships 96 rows + device pad instead of a
-host-padded 128 — 25% fewer tunnel bytes on the bottleneck link).
+host-padded 128 — 25% fewer upload bytes).
 
 Usage: python scripts/time_upload_buckets.py [ROUNDS]
 """

@@ -2,9 +2,9 @@
 """Same-session interleaved A/B of the delta-bitpacked 16-bit plane
 upload (LAC_TPU_UPLOAD_DELTA) — wrapped int16 deltas packed to 8/12/14
 bits, inverted exactly on device. Music-scale content takes the 14-bit
-tier (-12.5% tunnel bytes); quieter content the 12/8-bit tiers
-(-25/-50%). The upload link is the pipeline's bottleneck, so byte
-savings convert ~1:1 into throughput when upload-bound.
+tier (-12.5% upload bytes); quieter content the 12/8-bit tiers
+(-25/-50%). Byte savings convert into throughput only when the
+pipeline is upload-bound.
 
 Three content modes: the long-file bench shape (default; LONG_BLOCKS
 full blocks), `--corpus` (the 30 s headline shape), and `--depth24`

@@ -164,8 +164,8 @@ def test_doubled_plan_batch_matches_legacy(monkeypatch):
 @pytest.mark.skipif(
     os.environ.get("LAC_TPU_SLOW") != "1",
     reason="production-shape compile smoke: tens of minutes on one CPU core "
-    "(run with LAC_TPU_SLOW=1; on TPU the shape is exercised by "
-    "warm_cache.py + bench.py every round)",
+    "(run with LAC_TPU_SLOW=1; on the GPU, `python chip_smoke.py` runs "
+    "the production shapes against the native host bytes)",
 )
 def test_production_shape_parity(monkeypatch):
     # compile + run the real (128, 16384) chunk width once and assert

@@ -115,7 +115,20 @@ def _limb_cases():
         ("probe_len", rng.randint(-65535, 65536, (11, 256)).astype(np.int32), 65535),
         ("tiny_vals", rng.randint(-3, 4, (3, 16384)).astype(np.int32), 3),
         ("int16_dtype", rng.randint(-32768, 32768, (4, 4096)).astype(np.int16), 32767),
+        ("full_scale_24bit", _full_scale(rng, 24), 1 << 23),
+        ("full_scale_16bit", _full_scale(rng, 16), 1 << 15),
     ]
+
+
+def _full_scale(rng, depth):
+    """Full-scale PCM of one bit depth, boundary samples included: rows
+    pinned at the negative and positive limits and alternating between
+    them, then uniform noise over the whole range."""
+    lo, hi = -(1 << (depth - 1)), (1 << (depth - 1)) - 1
+    x = rng.randint(lo, hi + 1, (6, 16384)).astype(np.int32)
+    x[0], x[1] = lo, hi
+    x[2, ::2], x[2, 1::2] = lo, hi
+    return x
 
 
 @pytest.mark.parametrize("name,x,maxabs", _limb_cases(), ids=[c[0] for c in _limb_cases()])
